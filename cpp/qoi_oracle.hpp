@@ -1,7 +1,7 @@
 // qoi_oracle — clean-room C++17 implementation of the QOI bitstream.
 //
 // Role in this project (see SURVEY.md §2.4): host-side differential oracle for
-// the TPU engine. Semantics follow the normative format description in the
+// the device engine. Semantics follow the normative format description in the
 // reference (/root/reference/qoi.h:61-207) and the behavioural contract probed
 // in SURVEY.md §2.2-§2.3. This is an independent implementation, not a copy:
 // vector-of-bytes output, RAII, std::span-style views, and a stateful

@@ -1,5 +1,5 @@
 // qoibench-cpp — single-core benchmark of the oracle codec.
-// This is the baseline *denominator* for the TPU engine's speedup numbers
+// This is the baseline *denominator* for the device engine's speedup numbers
 // (reference harness: /root/reference/qoibench.c; metrics per
 // qoibench.c:340-357: ms, Mpixels/s, size KB, rate %).
 //

@@ -1,6 +1,6 @@
-"""qoi_tpu — a TPU-native QOI (Quite OK Image) encode/decode engine.
+"""qoi_tpu — a data-parallel QOI (Quite OK Image) encode/decode engine.
 
-Built from scratch in JAX/XLA/Pallas with C++ host components; bit-exact
+Built from scratch in JAX/XLA with C++ host components; bit-exact
 against the reference format (see SURVEY.md for the structural analysis and
 the parallel reformulation of the reference's sequential codec).
 """
@@ -17,7 +17,8 @@ __version__ = "0.1.0"
 
 
 #: pixel count above which the all-at-once pipeline's intermediates would
-#: strain single-chip HBM; larger images stream tile-by-tile instead
+#: strain one device's memory; larger images stream tile-by-tile instead.
+#: Sized for a 16 GB device; not yet re-swept for larger ones.
 STREAM_THRESHOLD_PX = 1 << 24
 
 

@@ -7,7 +7,7 @@ Mirrors the reference harness semantics: per-image roundtrip verification
 before timing (qoibench.c:410-417), a discarded warmup run per codec
 (qoibench.c:362-376), recursive *.png directory walking (qoibench.c:491),
 and the same metric table — decode/encode ms, Mpixels/s, size KB, rate %
-(qoibench.c:340-357). Codecs under test: the TPU engine (qoi-tpu), the
+(qoibench.c:340-357). Codecs under test: the device engine (qoi-tpu), the
 single-core C++ oracle (qoi-cpp), and PIL PNG (the stb/libpng analog;
 skippable with --nopng).
 
@@ -177,8 +177,8 @@ def synthetic_suite(kind: str = "full"):
 
 def scaling_sweep(opts) -> int:
     """Tiled (sequence-parallel) encode+decode over growing meshes; prints
-    per-shard-count Mpx/s and scaling efficiency (SURVEY §5.5: N-host
-    Mpx/s / (N x 1-host Mpx/s); BASELINE target >=85% on real slices)."""
+    per-shard-count Mpx/s and scaling efficiency (SURVEY §5.5: N-device
+    Mpx/s / (N x 1-device Mpx/s))."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -226,7 +226,7 @@ def scaling_sweep(opts) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="qoi-tpu-bench", description="QOI benchmark harness (TPU engine)")
+        prog="qoi-tpu-bench", description="QOI benchmark harness (device engine)")
     ap.add_argument("runs", type=int, help="timed runs per codec per image")
     ap.add_argument("target", nargs="?", help="directory of .png files")
     ap.add_argument("--synthetic", nargs="?", const="full",
@@ -241,14 +241,13 @@ def main(argv=None) -> int:
                     help="sequence-parallel scaling sweep: encode one "
                          "image tiled over 1..N devices and report Mpx/s "
                          "plus scaling efficiency per shard count "
-                         "(BASELINE's >=85%% target; honest numbers need "
-                         "real chips — on the forced-CPU test mesh this "
-                         "exercises the code path, not the ICI)")
+                         "(timings need real devices — on the forced-CPU "
+                         "test mesh this exercises the code path only)")
     opts = ap.parse_args(argv)
     if opts.runs < 1:
         ap.error("runs must be >= 1")
     from .utils import profiling
-    profiling.enable_compile_cache()  # env vars alone are swallowed here
+    profiling.enable_compile_cache()
     if opts.scaling:
         return scaling_sweep(opts)
 

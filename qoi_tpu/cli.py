@@ -20,7 +20,7 @@ from . import format as fmt, io
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="qoi-tpu-conv", description="QOI <-> PNG converter (TPU engine)")
+        prog="qoi-tpu-conv", description="QOI <-> PNG converter (device engine)")
     ap.add_argument("infile")
     ap.add_argument("outfile")
     ap.add_argument("--engine", choices=("tpu", "scan", "oracle"),
@@ -35,7 +35,7 @@ def main(argv=None) -> int:
                     help="shape-bucketing floor (compiled-shape granularity)")
     args = ap.parse_args(argv)
     from .utils import profiling
-    profiling.enable_compile_cache()  # env vars alone are swallowed here
+    profiling.enable_compile_cache()
     config = cfg.EngineConfig(
         engine=args.engine, verify=args.verify,
         decode_max_iters=args.max_rounds, bucket_floor=args.bucket_floor)

@@ -3,7 +3,7 @@
 The reference's configuration is compile-time macros (QOI_IMPLEMENTATION,
 QOI_NO_STDIO, QOI_MALLOC/FREE — qoi.h:18-58) plus qoibench argv flags.
 Here one dataclass covers the engine tunables; CLI tools map their argv
-onto it. Kernel block sizes default to measured-good values for v5e.
+onto it.
 """
 from __future__ import annotations
 
@@ -13,9 +13,10 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Tunables for the TPU codec engine."""
+    """Tunables for the device codec engine."""
 
-    # which codec drives encode/decode: "tpu" (parallel pipeline),
+    # which codec drives encode/decode: "tpu" (the parallel device
+    # pipeline; the name predates the GPU port),
     # "scan" (sequential lax.scan anchor), "oracle" (C++ host codec)
     engine: str = "tpu"
 

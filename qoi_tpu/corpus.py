@@ -162,10 +162,10 @@ def init_distributed(coordinator: str, num_processes: int,
                      process_id: int) -> None:
     """Bring up the cross-host runtime (SURVEY §5.8: DCN across hosts).
 
-    On TPU pods the three arguments are normally auto-detected and
-    `jax.distributed.initialize()` suffices; here they are explicit so the
-    same code path runs as N local processes over the CPU backend (the
-    2-process test in tests/test_distributed.py exercises exactly this)."""
+    The three arguments are explicit: nothing tells JAX of a cluster on
+    its own, and the same code path runs as N local processes over the
+    CPU backend (the 2-process test in tests/test_distributed.py
+    exercises exactly this)."""
     import jax
 
     jax.distributed.initialize(

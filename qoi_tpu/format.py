@@ -104,6 +104,15 @@ def unpack_header(data: bytes) -> StreamDesc:
     return desc
 
 
+def hash_px(px):
+    """Unmasked hash sum 3r + 5g + 7b + 11a over the last axis of an
+    integer (..., 4) array (numpy or jax), as four multiplies and three
+    adds (reference qoi.h:92)."""
+    m = HASH_MULTIPLIERS
+    return (px[..., 0] * m[0] + px[..., 1] * m[1] + px[..., 2] * m[2]
+            + px[..., 3] * m[3])
+
+
 def hash_rgba(r: int, g: int, b: int, a: int) -> int:
     """Color-table slot for a pixel (reference qoi.h:92-94)."""
     m = HASH_MULTIPLIERS

@@ -6,15 +6,16 @@ the batch axis is embarrassingly parallel and maps onto `vmap` within a chip
 and the "data" mesh axis across chips (qoi_tpu/parallel/sharding.py).
 
 Shape bucketing keeps the number of compiled programs O(log max-size):
-images are grouped by their power-of-two pixel bucket, stacked, and run as
-one vmapped call per group (per-image true sizes stay dynamic `n_valid`
-operands). Invalid inputs are flagged per-image and the batch continues
-(SURVEY §5.3: failure detection without elastic recovery).
+images are grouped by their power-of-two pixel bucket (per-image true
+sizes stay dynamic `n_valid` operands). Encode dispatches the fused
+word-sum program once per image of a group; decode runs each group of
+streams as one vmapped program. Invalid inputs are flagged per-image and
+the batch continues (SURVEY §5.3: failure detection without elastic
+recovery).
 """
 from __future__ import annotations
 
 import collections
-import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import jax
@@ -22,28 +23,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import format as fmt
-from ..ops import compact
+from ..utils import fetch
 from . import decode_pipeline, decode_v3, pipeline
 
 
 @jax.jit
-def _encode_batch_phase_a(px4: jnp.ndarray, n_valid: jnp.ndarray):
-    return jax.vmap(pipeline._encode_phase_a)(px4, n_valid)
-
-
-@functools.partial(jax.jit, static_argnames=("capacity",))
-def _encode_batch_phase_b(px4, n_valid, local, capacity: int):
-    def one(px, n, loc):
-        chunks = pipeline.encode_stage_chunks(px, n, table_local=loc)
-        return compact.compact_bytes6(chunks.staging, chunks.lens, capacity)
-
-    return jax.vmap(one, in_axes=(0, 0, 0))(px4, n_valid, local)
-
-
-def _encode_batch_device(px4: jnp.ndarray, n_valid: jnp.ndarray, capacity: int):
-    # two-program flow (PERF_NOTES.md: monolith stalls the remote compiler)
-    local = _encode_batch_phase_a(px4, n_valid)
-    return _encode_batch_phase_b(px4, n_valid, local, capacity)
+def _stack_totals(totals):
+    return jnp.stack(totals)
 
 
 def encode_batch(
@@ -71,50 +57,26 @@ def encode_batch(
             flat = pipeline.force_rgba(images[i], descs[i])
             px[row, : flat.shape[0]] = flat
             nv[row] = flat.shape[0]
-        if jax.devices()[0].platform == "tpu":
-            # per-image pipelined dispatch of the fused word-sum program
-            # (the fastest measured structure, PERF_NOTES r3), synced
-            # with ONE combined totals fetch; each stream's words are
-            # then fetched in fixed-shape pieces (only ~total bytes move
-            # through the ~3 MB/s host link)
-            from ..utils import fetch
-
-            devouts = [
-                pipeline.encode_device_wordsum(
-                    jnp.asarray(px[row]), jnp.int32(nv[row]))
-                for row in range(len(idxs))
-            ]
-            comb = jax.jit(lambda ts: jnp.stack(ts))
-            tots = np.asarray(jax.device_get(
-                comb([t for _, t in devouts])))
-            for row, i in enumerate(idxs):
-                words, _ = devouts[row]
-                body = fetch.fetch_prefix(
-                    words, -(-int(tots[row]) // 4)).view(np.uint8)
-                out[i] = (
-                    fmt.pack_header(descs[i])
-                    + body[: int(tots[row])].tobytes()
-                    + fmt.TRAILER
-                )
-            continue
-        bufs, totals = _encode_batch_device(
-            jnp.asarray(px), jnp.asarray(nv), bucket * 6)
-        bufs = np.asarray(jax.device_get(bufs))
-        totals = np.asarray(jax.device_get(totals))
+        # the fused word-sum program (what bench.py times), one dispatch
+        # per image, all queued before the one totals fetch; each
+        # stream's words then come back as a prefix of its buffer
+        devouts = [
+            pipeline.encode_device_wordsum(
+                jnp.asarray(px[row]), jnp.int32(nv[row]))
+            for row in range(len(idxs))
+        ]
+        tots = np.asarray(jax.device_get(
+            _stack_totals([t for _, t in devouts])))
         for row, i in enumerate(idxs):
+            words, _ = devouts[row]
+            body = fetch.fetch_prefix(
+                words, -(-int(tots[row]) // 4)).view(np.uint8)
             out[i] = (
                 fmt.pack_header(descs[i])
-                + bufs[row, : totals[row]].tobytes()
+                + body[: int(tots[row])].tobytes()
                 + fmt.TRAILER
             )
     return out
-
-
-@functools.partial(jax.jit, static_argnames=("n_px_cap",))
-def _decode_batch_device(data: jnp.ndarray, chunks_len: jnp.ndarray, n_px_cap: int):
-    return jax.vmap(
-        lambda d, c: decode_pipeline._decode_chunks(d, c, n_px_cap)
-    )(data, chunks_len)
 
 
 def decode_batch(

@@ -1,4 +1,4 @@
-"""Data-parallel QOI decoder: the flagship TPU decode pipeline (SURVEY §7.3).
+"""Data-parallel QOI decoder v1 (SURVEY §7.3): the cross-check and fallback.
 
 The reference decoder is a sequential chunk-at-a-time state machine with
 four loop carries (px, run, index[64], read cursor — qoi.h:540-587). Every

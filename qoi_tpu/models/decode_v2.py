@@ -1,9 +1,8 @@
-"""Gather-free parallel QOI decoder (v2) — the TPU-fast decode path.
+"""Gather-free parallel QOI decoder (v2) — a cross-check decoder.
 
 The v1 pipeline (models/decode_pipeline.py) is correct but leans on XLA
-gathers (~10 ms per million elements on this platform, PERF_NOTES.md):
-chunk-field gathers, INDEX-target gathers, pointer-doubling rounds. v2
-removes every gather and scatter from the resolution loop:
+gathers: chunk-field gathers, INDEX-target gathers, pointer-doubling
+rounds. v2 removes every gather and scatter from the resolution loop:
 
   fields      : per-BYTE shifted arrays (concat shifts) — no record
                 compaction at all; non-start bytes are monoid identities
@@ -18,7 +17,7 @@ removes every gather and scatter from the resolution loop:
 The only cross-chunk recurrence left is INDEX indirection (a chunk copying
 a value that itself came through INDEX). That resolves by a HOST-level
 fixpoint: each round is two cached device programs (big tensor families
-split from the rest, PERF_NOTES.md), and px(round k) is exact for every
+split from the rest), and px(round k) is exact for every
 chunk whose INDEX-nesting depth is < k. Fixpoint + hash consistency is the
 same exactness certificate as v1; non-convergence falls back to the v1 /
 sequential paths.
@@ -106,7 +105,7 @@ def _unpack_flags(flags):
 
 def _resolve_scan(f, lit, deltas, idx_val, idx_found):
     """Per-channel reset-or-add scans -> value-after-byte (4, M) uint8,
-    channel-major ((M, 4) would lane-pad 32x on TPU — PERF_NOTES.md).
+    channel-major: one contiguous plane per channel.
     idx_val/idx_found: INDEX chunks' table values for this round."""
     m = lit.shape[0]
     b2 = (lit & 0xFF).astype(jnp.uint8)

@@ -1,4 +1,4 @@
-"""Blocked symbolic state-machine decoder (v3) — the TPU-fast decode path.
+"""Blocked symbolic state-machine decoder (v3) — the default device decode path.
 
 The reference decoder (qoi.h:488-590) is a sequential recurrence on the
 state S = (px, index[64]) — 65 pixel values. The key reformulation here:
@@ -39,14 +39,15 @@ expansion):
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .. import format as fmt
-from ..ops import fsm, scans
+from ..ops import expand, fsm, scans
+from ..utils import profiling
 from . import decode_pipeline as v1
 
 _SEED = jnp.array(fmt.SEED_PIXEL, dtype=jnp.uint8)
@@ -192,7 +193,7 @@ def _initial_w(cls, r6, d32, lit32, entry_px32=None, npix=None):
         ps = scans.blocked_scan(comb, packed)
     else:
         # co-scan the pixel-offset cumsum on the same blocked pass: the
-        # affine leaf and the npix add share one HBM traversal instead
+        # affine leaf and the npix add share one memory traversal instead
         # of two separate full-array scans (pix_off = exclusive form)
         ps, inc = scans.blocked_scan(
             lambda a, b: (comb(a[0], b[0]), a[1] + b[1]), (packed, npix))
@@ -205,12 +206,12 @@ def _initial_w(cls, r6, d32, lit32, entry_px32=None, npix=None):
 
 def _anchored_w(cls, r6, d32, px32, entry_px32=None):
     """Next-round written-slot estimate from a resolve's px values,
-    re-anchored at every reset chunk (round-3 design).
+    re-anchored at every reset chunk.
 
     The naive iteration w' = hash(px) inherits ALL of px's downstream
     corruption (one wrong table write poisons every INDEX read of that
-    slot, so the exact prefix advances only ~1 error per round —
-    measured ~100 bytes/round on dense-INDEX content). But the hash
+    slot, so the exact prefix advances only ~1 error per round). But
+    the hash
     recurrence re-anchors absolutely at three of the four op classes:
 
       INDEX r:  hash(px') = r by the table invariant index[hash(p)]==p
@@ -376,8 +377,8 @@ def _compose_entry_states(root, val, nb: int, entry65=None,
                 jnp.where(is_abs, bv, (lv + bv) & 0xFF))
 
     # plain associative_scan: nb (block count) is M/B — tens of thousands
-    # at most, far below the sizes that stall the remote compiler; the
-    # combine's (4, 65, X) layout must stay fixed (one-hot over axis 2)
+    # at most; the combine's (4, 65, X) layout must stay fixed (one-hot
+    # over axis 2)
     rs, vs = jax.lax.associative_scan(comb, (rc, vc), axis=-1)
 
     # apply to the initial state (per channel (4, 65)): the composed map's
@@ -411,9 +412,9 @@ def _apply_symbolic(proot, pval, entry_packed):
     """Vectorized pass 3: numeric px after every position from the
     symbolic per-position px entries (pass 1's `emit_px` output) and the
     per-block entry states (pass 2). Replaces the sequential numeric
-    re-scan — the scan's B sequential steps are latency-bound on this
-    platform while this form is ~65 fused SWAR select/accumulate passes
-    over (B, nb), fully parallel.
+    re-scan — the scan's B sequential steps are latency-bound, while this
+    form is ~65 fused SWAR select/accumulate passes over (B, nb), fully
+    parallel.
 
     Per channel c of position i in block n:
         px_c = pval_c                          if proot_c == _ABS
@@ -466,46 +467,28 @@ def _numeric_scan(meta, d32, lit32, entry, nb: int):
     return px, exit65
 
 
-#: cap on the resolve's scan length B. Round-2 pow2-bucket sweeps said
-#: 2048; under fine stream buckets the optimum moved UP (hardware r3,
-#: b16 vmapped photo batch: B=2048 184.7, 4096 193.5-198.8, 8192
-#: 202.8-206.6, 16384 206.2 Mpx/s — plateau at >= 8192; the compose
-#: pass-2 work shrinks with nb = M/B). tools/abperf.py sweeps this (set
-#: the cap + jax.clear_caches() between variants).
+#: cap on the resolve's scan length B: longer scans mean more
+#: sequential pass-1 steps, shorter ones a wider pass-2 compose (its work
+#: grows with nb = M/B). Sized for a 16 GB device; not yet re-swept for
+#: larger ones.
 _SCAN_B_MAX = 8192
 
-#: pass-1 lax.scan unroll. Hardware r4: unroll HURTS (38.9 / 42.7 /
-#: 48.7 ms/frame at 1 / 4 / 8, b16 photo batch) — scan steps here are
-#: not bookkeeping-bound; bigger bodies schedule worse. Keep 1.
+#: pass-1 lax.scan unroll: scan steps here are not bookkeeping-bound,
+#: so unrolling only makes bigger bodies to schedule.
 _P1_UNROLL = 1
 
-#: surgical second round (r5): narrow dirty-window rebuild + exact
+#: surgical second round: narrow dirty-window rebuild + exact
 #: entry-delta apply between the peeled round 1 and the full-round
 #: loop. A batched (vmapped) decode only profits when EVERY lane is
-#: surgically fixable — one dense-error lane (e.g. bench mixed seed 5:
-#: 4380 bad positions / 119 windows) drags the whole batch through the
-#: full round anyway, making the surgical pure overhead there. abperf
-#: sweeps this flag ("nosurg" entries).
+#: surgically fixable — one dense-error lane drags the whole batch
+#: through the full round anyway, making the surgical pure overhead
+#: there, so batches leave it off.
 _SURGICAL = True
-
-#: expand-kernel geometry (kernels/expand.py): output pixels per grid
-#: step / pixels per subtile row. The r2-r4 closures pinned 1024/nb2
-#: because the in-kernel per-subtile anchor work scaled with the
-#: scratch window rows; with PREFETCHED anchors (r5, _PREF_ANCHORS)
-#: that cost is gone and bigger tiles win on pure step count: hardware
-#: b16 photo 31.0 (1024/nb2) / 30.5 (2048/nb2) / 30.8 (2048/nb4) /
-#: 30.4 (4096/nb4); sub=256 still loses to register spill (38.8).
-_EXPAND_TILE = 4096
-_EXPAND_SUB = 128
-#: DMA blocks per expand grid step (kernels/expand._wblk). At tile
-#: 4096, 4 x 64-row blocks keep the scratch window at 256 rows — the
-#: packed 8-bit prefetched anchors' ceiling (r_lo <= 248 < 256).
-_EXPAND_NBLOCKS = 4
-
 
 def _scan_block_len(m: int) -> int:
     """Static scan length B (positions per block): keeps lane width nb =
-    m / B wide enough for the VPU while bounding sequential steps."""
+    m / B wide enough to fill the device while bounding sequential
+    steps."""
     b = 16
     while b < _SCAN_B_MAX and b * 64 <= m:
         b <<= 1
@@ -523,9 +506,9 @@ def _resolve_p(base_p, d32_p, lit32_p, w, m: int, b: int, entry65=None,
     PRE-TRANSPOSED loop-invariant planes (base_p = position-major
     cls | r6 << 9, d32_p, lit32_p). Only w — the one per-round input —
     pays a transpose per round; the other three planes transpose once
-    per decode in `_decode_core` (round-5 loop-tax fix: the old form
-    re-transposed all of them inside every fixpoint round, ~3 x 58 MB
-    HBM round-trips per round at 4K).
+    per decode in `_decode_core` (re-transposing all of them inside
+    every fixpoint round costs ~3 x 58 MB of memory round-trips per
+    round at 4K).
 
     Returns (px32 (M,) uint32: the decoder's px value after every byte
     position, exit65). `apply` picks pass 3: "vector" (default) applies
@@ -579,7 +562,7 @@ def _decode_core(data: jnp.ndarray, chunks_len: jnp.ndarray,
     state (valid only when converged). `surgical` enables the narrow
     second round — leave OFF for vmapped batches (one dense-error lane
     drags the whole batch through the full round anyway, making the
-    surgical pure overhead there; hardware r5)."""
+    surgical pure overhead there)."""
     m = data.shape[0]
     b = _scan_block_len(m)
     nbk = m // b
@@ -596,11 +579,10 @@ def _decode_core(data: jnp.ndarray, chunks_len: jnp.ndarray,
     base_f = (cls | (r6 << 9)).astype(jnp.int32)
     if use_surgical:
         # loop-invariant position-major planes, transposed ONCE (each
-        # round re-transposing them costs ~3 x 58 MB of HBM round-trips
+        # round re-transposing them costs ~3 x 58 MB of memory round-trips
         # at 4K — and the surgical body reads them anyway). NOT hoisted
         # for batched decodes: planes alive across the loop cost ~175
-        # MB/lane, which pushed the b32 chunked16 program over the HBM
-        # roof (r5 ResourceExhausted) — worth it only when the surgical
+        # MB/lane of device memory — worth it only when the surgical
         # needs them resident.
         base_p = _pos_major(base_f, m, b)
         d32_p = _pos_major(d32, m, b)
@@ -634,10 +616,9 @@ def _decode_core(data: jnp.ndarray, chunks_len: jnp.ndarray,
         mis_b = jnp.any(mis.reshape(nbk, b), axis=1)
         return px, exit65, bad, extra, mis_b
 
-    # loop state is SLIM (r5: the batched while_loop costs real HBM per
+    # loop state is SLIM (a batched while_loop pays memory traffic per
     # carried plane — masked-lane selects touch every carry each
-    # iteration; the straight-line ablation put the whole loop tax at
-    # ~6 ms/frame): px is the one big carry, w is NOT carried (the body
+    # iteration): px is the one big carry, w is NOT carried (the body
     # rebuilds it from px and nothing downstream reads it)
     def body(state):
         px_prev, _, it, prev_bad, _ = state
@@ -665,12 +646,12 @@ def _decode_core(data: jnp.ndarray, chunks_len: jnp.ndarray,
 
     # the surgical round only pays when the K-block rebuild is genuinely
     # narrow (>= 4x fewer lanes than a full pass 1); tiny streams go
-    # straight to the full-round loop (mini-scale hardware check: at
-    # nbk = 32 the "surgical" round cost ~2x a full round)
+    # straight to the full-round loop (at nbk = 32 the "surgical" round
+    # would do more work than a full round)
     if use_surgical:
-        # ---- surgical round 2 (round-5 design) --------------------------
-        # The full second round costs as much as the first (~21 ms/frame
-        # at 4K), but its genuine new information is tiny: round-1
+        # ---- surgical round 2 -------------------------------------------
+        # The full second round costs as much as the first, but its
+        # genuine new information is tiny: round-1
         # certificate mismatches are sparse (stale-alpha RGB chunks) and
         # the anchored-w fix is LOCAL — w1 differs from w0 only between a
         # mismatch and the next reset chunk. So: rebuild w and the pass-1
@@ -691,11 +672,10 @@ def _decode_core(data: jnp.ndarray, chunks_len: jnp.ndarray,
         dirty = mis_b | jnp.concatenate(
             [jnp.zeros((1,), bool), mis_b[:-1]])
         # greedy cover of the dirty blocks by W contiguous WB-block
-        # windows: single-offset dynamic slices are the one batched
-        # selection primitive this TPU runs at DMA speed — per-row
-        # gathers/scatters of the same volume measured ~20 ms/frame
-        # (PERF_NOTES gather rule; r5 hardware). Windows are disjoint by
-        # construction (the next start is past the previous window).
+        # windows: single-offset dynamic slices move contiguous memory,
+        # where per-row gathers/scatters of the same volume would not.
+        # Windows are disjoint by construction (the next start is past
+        # the previous window).
         iot = jnp.arange(nbk, dtype=jnp.int32)
         sj = []
         prev_end = jnp.int32(-1)
@@ -790,147 +770,37 @@ def _decode_core(data: jnp.ndarray, chunks_len: jnp.ndarray,
     return px, starts, npix, pix_off, conv, rounds, exit65
 
 
-#: dense-expand geometry: 512-px subtiles are only sound on CHUNK-dense
-#: records (every row advances >= 1 px — kernels/expand._wfrows_dense)
-_DENSE_TILE = 4096
-_DENSE_SUB = 512
-
-
-def _compact_chunks(starts, pix_off, px32, interpret: bool = False,
-                    stop: str = ""):
-    """Per-byte (pix_off, px32) rows -> chunk-dense records in a prefix
-    of the SAME length (static shapes; only ~bytes/2.1 slots are real).
-    Real records pack at the front via the 2-plane VMEM slide kernel
-    (kernels/slide.py); tail slots get (pix_off=_INF, px=0) so they land
-    nowhere and their deltas cancel out of every prefix sum. The dense
-    form feeds kernels/expand's dense geometry: >= 1 px per record
-    means 4x less DMA per grid step and 4x fewer accumulate ops per
-    pixel at sub=512."""
-    from ..kernels import expand as kexpand
-    from ..kernels.slide import slide_val2
-
-    m = starts.shape[0]
-    seg = 4096
-    nseg = m // seg
-    a = starts.astype(jnp.int32)
-    dest = scans.exclusive_cumsum(a)
-    if stop == "cumsum":  # abperf phase ablation stop points
-        return dest, px32
-    n_chunks = (dest[-1] + a[-1]).astype(jnp.int32)
-    a_r = a.reshape(nseg, seg)
-    cnt = jnp.sum(a_r, axis=1)
-    base = jnp.concatenate([jnp.zeros((1,), jnp.int32),
-                            jnp.cumsum(cnt)[:-1].astype(jnp.int32)])
-    iota = jax.lax.broadcasted_iota(jnp.int32, (nseg, seg), 1)
-    d = jnp.where(a_r != 0,
-                  iota - (dest.reshape(nseg, seg) - base[:, None]), 0)
-    aux = a_r | (d << 1)
-    if stop == "events":
-        return aux, px32
-    off_s, px_s = slide_val2(
-        pix_off.astype(jnp.int32).reshape(nseg, seg),
-        px32.reshape(nseg, seg), aux, interpret=interpret)
-    if stop == "slide":
-        return off_s, px_s
-
-    # assemble: dense per-segment prefixes -> global dense prefix (the
-    # windowed row scatter-add is ~free; overlapping windows only add
-    # zeros onto real records — the slide kernel alive-masks its output)
-    dn = jax.lax.ScatterDimensionNumbers(
-        update_window_dims=(1,), inserted_window_dims=(),
-        scatter_dims_to_operand_dims=(0,))
-
-    def assemble(rows):
-        out = jax.lax.scatter_add(
-            jnp.zeros((m + seg,), jnp.int32), base[:, None],
-            rows, dn,
-            indices_are_sorted=True, unique_indices=False,
-            mode=jax.lax.GatherScatterMode.CLIP)
-        return out[:m]
-
-    tail = jnp.arange(m, dtype=jnp.int32) >= n_chunks
-    off_d = jnp.where(tail, kexpand._INF, assemble(off_s))
-    px_d = jnp.where(tail, 0, assemble(px_s)).view(jnp.uint32)
-    return off_d, px_d
-
-
-def _expand_packed(starts, px32, pix_off, n_px_cap: int,
-                   use_kernel: bool = False, accum: str = "xw",
-                   dense: bool = False, interpret: bool = False):
-    """Run expansion via the telescoping-delta formulation
-    (kernels/expand.py): out[p] = seed + sum of px-deltas over bytes
-    with pix_off <= p, which telescopes to the governing chunk's px.
-    `use_kernel` selects the Pallas placement kernel (TPU); the XLA path
-    is one sorted scatter-add + cumsum. `dense` first compacts the
-    per-byte rows to chunk records (`_compact_chunks`) and runs the
-    kernel's dense geometry. Truncation-tolerant: pixels before any
-    chunk keep the seed, pixels past the last chunk repeat its px
-    (reference qoi.h:544)."""
-    from ..kernels import expand as kexpand
-
-    if use_kernel:
-        if dense and pix_off.shape[0] % 4096 == 0:
-            off_d, px_d = _compact_chunks(starts, pix_off, px32,
-                                          interpret=interpret)
-            return kexpand.expand_px(off_d, px_d, n_px_cap, accum=accum,
-                                     tile=_DENSE_TILE, sub=_DENSE_SUB,
-                                     dense=True, interpret=interpret)
-        return kexpand.expand_px(pix_off, px32, n_px_cap, accum=accum,
-                                 tile=_EXPAND_TILE, sub=_EXPAND_SUB,
-                                 nblocks=_EXPAND_NBLOCKS,
-                                 interpret=interpret)
-    return kexpand.expand_px_xla(pix_off, px32, n_px_cap)
-
-
-def _use_kernel_default() -> bool:
-    """Pallas expansion on real TPU; XLA path everywhere else."""
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover - no backend at all
-        return False
-
-
 @functools.partial(jax.jit, static_argnames=(
-    "n_px_cap", "max_rounds", "use_kernel", "accum", "dense", "apply",
-    "surgical"))
+    "n_px_cap", "max_rounds", "surgical"))
 def _decode_device(data, chunks_len, n_px_cap: int,
-                   max_rounds: int = _MAX_ROUNDS, use_kernel: bool = False,
-                   accum: str = "xw", dense: bool = False,
-                   apply: str = "vector", surgical: bool = True):
+                   max_rounds: int = _MAX_ROUNDS, surgical: bool = True):
     px, starts, npix, pix_off, conv, rounds, _ = _decode_core(
-        data, chunks_len, max_rounds, apply=apply, surgical=surgical)
-    out = _expand_packed(starts, px, pix_off, n_px_cap, use_kernel, accum,
-                         dense=dense)
+        data, chunks_len, max_rounds, surgical=surgical)
+    with profiling.annotate("qoi.decode.expand"):
+        out = expand.expand_px(pix_off, px, n_px_cap)
     return out, conv, rounds
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "n_px_cap", "max_rounds", "use_kernel", "accum", "dense", "apply",
-    "surgical"))
+@functools.partial(jax.jit, static_argnames=("n_px_cap", "max_rounds"))
 def _decode_device_batch(data, chunks_len, n_px_cap: int,
-                         max_rounds: int = _MAX_ROUNDS,
-                         use_kernel: bool = False, accum: str = "xw",
-                         dense: bool = False, apply: str = "vector",
-                         surgical: bool = False):
+                         max_rounds: int = _MAX_ROUNDS):
     return jax.vmap(
-        lambda d, c: _decode_device(d, c, n_px_cap, max_rounds, use_kernel,
-                                    accum, dense, apply, surgical)
+        lambda d, c: _decode_device(d, c, n_px_cap, max_rounds,
+                                    surgical=False)
     )(data, chunks_len)
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "n_px_cap", "max_rounds", "use_kernel", "sub_batch", "accum"))
+    "n_px_cap", "max_rounds", "sub_batch"))
 def _decode_device_batch_chunked(data, chunks_len, n_px_cap: int,
                                  max_rounds: int = _MAX_ROUNDS,
-                                 use_kernel: bool = False,
-                                 sub_batch: int = 8, accum: str = "xw"):
+                                 sub_batch: int = 8):
     """Large-batch decode as ONE program: lax.map over vmapped sub-batches.
 
     A flat vmap over B streams holds every stream's intermediates live at
-    once (~0.4 GB of (M,) int32 families per 4K stream — batch 16 already
-    nears the HBM roof); sequential sub-batches keep peak memory at
-    sub_batch streams while still paying the ~30 ms per-program floor
-    once for the whole batch (PERF_NOTES.md measurement rules)."""
+    once (~0.4 GB of (M,) int32 families per 4K stream); sequential
+    sub-batches bound peak memory at sub_batch streams while the whole
+    batch stays one dispatch."""
     b = data.shape[0]
     if b % sub_batch:
         raise ValueError(f"batch {b} not divisible by sub_batch {sub_batch}")
@@ -939,7 +809,6 @@ def _decode_device_batch_chunked(data, chunks_len, n_px_cap: int,
     out, conv, rounds = jax.lax.map(
         lambda dc: jax.vmap(
             lambda x, y: _decode_device(x, y, n_px_cap, max_rounds,
-                                        use_kernel, accum,
                                         surgical=False))(dc[0], dc[1]),
         (d, c))
     return (out.reshape(b, -1), conv.reshape(b), rounds.reshape(b))
@@ -952,30 +821,22 @@ def unpack_px32(px32: np.ndarray) -> np.ndarray:
 
 
 def decode_group(data: jnp.ndarray, chunks_len: jnp.ndarray, n_px_cap: int,
-                 use_kernel: Optional[bool] = None,
                  max_rounds: int = _MAX_ROUNDS, sub_batch: int = 16):
     """Batched device decode for same-bucket streams. data: (B, M) uint8;
     chunks_len: (B,) int32. Returns (px32 (B, n_px_cap) uint32, converged
-    (B,) bool). `use_kernel` selects the Pallas expand kernel (defaults
-    to auto: on for real TPU). Batches larger than `sub_batch` run as
-    ONE program that lax.maps vmapped sub-batches: a flat vmap of 16 4K
-    streams already nears the HBM roof, while the chunked form bounds
-    peak memory at `sub_batch` lanes and still pays the per-program
-    floor once (hardware: b32 chunked16 ~ +1.5% over b16 flat, and
-    chunked8 measured ~5% WORSE than chunked16 — batched decodes keep
-    transient transposes precisely so 16 lanes fit; see the
-    use_surgical hoist note in _decode_core)."""
-    if use_kernel is None:
-        use_kernel = _use_kernel_default()
+    (B,) bool). Batches larger than `sub_batch` (and divisible by it) run
+    as ONE program that lax.maps vmapped sub-batches, bounding peak
+    memory at `sub_batch` lanes; smaller batches run one flat vmap.
+    sub_batch=16 was sized for a 16 GB device and is not yet re-swept
+    for larger ones."""
     b = data.shape[0]
     if b > sub_batch and b % sub_batch == 0:
         out, conv, _ = _decode_device_batch_chunked(
             data, chunks_len, n_px_cap, max_rounds=max_rounds,
-            use_kernel=use_kernel, sub_batch=sub_batch)
+            sub_batch=sub_batch)
     else:
         out, conv, _ = _decode_device_batch(data, chunks_len, n_px_cap,
-                                            max_rounds=max_rounds,
-                                            use_kernel=use_kernel)
+                                            max_rounds=max_rounds)
     return out, conv
 
 
@@ -983,9 +844,9 @@ def decode(data: bytes, channels: int = 0,
            config=None) -> Tuple[np.ndarray, fmt.StreamDesc]:
     """Decode a QOI stream via the blocked symbolic pipeline;
     pixel-identical to the reference decoder (qoi.h:488). Falls back to
-    the v1 pipeline (which itself falls back to the sequential anchor) on
-    fixpoint non-convergence. `config` (an EngineConfig) tunes the
-    fixpoint cap and shape-bucketing floor."""
+    the native decoder (or the v1 pipeline without it) on fixpoint
+    non-convergence. `config` (an EngineConfig) tunes the fixpoint cap
+    and shape-bucketing floor."""
     if channels not in (0, 3, 4):
         raise ValueError(f"channels must be 0, 3 or 4, got {channels}")
     desc = fmt.unpack_header(data)
@@ -1001,8 +862,7 @@ def decode(data: bytes, channels: int = 0,
 
     px32, conv, _ = _decode_device(
         jnp.asarray(padded), jnp.int32(chunks_len),
-        v1.bucket_size(desc.num_pixels, floor), max_rounds=max_rounds,
-        use_kernel=_use_kernel_default())
+        v1.bucket_size(desc.num_pixels, floor), max_rounds=max_rounds)
     if not bool(jax.device_get(conv)):
         return _decode_ladder(data, channels)
     img = unpack_px32(np.asarray(jax.device_get(px32)))[
@@ -1015,11 +875,10 @@ def _decode_ladder(data: bytes, channels: int = 0):
     INDEX reads of unwritten slots break the r6 anchor's table
     invariant, reference semantics qoi.h:540-587). The native C++
     decoder (cpp/qoi_oracle.cpp — this framework's host component)
-    decodes such streams at full single-core speed (~200+ Mpx/s), which
-    BOUNDS the adversarial-decode cost at roughly the single-core
-    reference rate instead of the ~1 us/byte device sequential scan
-    (~2 orders of magnitude cliff, VERDICT r4 item 6). The v1 device
-    fixpoint + lax.scan anchor remain as the no-native-build ladder."""
+    decodes such streams at single-core speed, which bounds the
+    adversarial-decode cost near the reference's own rate instead of a
+    per-byte sequential device scan. The v1 device fixpoint + lax.scan
+    anchor remain as the no-native-build ladder."""
     from .. import oracle
 
     if oracle.available():

@@ -1,4 +1,4 @@
-"""Data-parallel QOI encoder: the flagship TPU pipeline (SURVEY.md §7.2).
+"""Data-parallel QOI encoder: the flagship device pipeline (SURVEY.md §7.2).
 
 The reference encoder is a sequential per-pixel state machine with four
 loop carries (px_prev, run, index[64], write cursor — qoi.h:406-478). Here
@@ -9,7 +9,7 @@ every carry is broken into a data-parallel or log-depth stage:
   3. table replay     last-writer-wins overwrite scan        (ops/table.py)
   4. classification   DIFF/LUMA/RGB/RGBA wraparound int8     (parallel)
   5. offsets          exclusive prefix sum of chunk lengths  (log depth)
-  6. compaction       byte scatter / merge                   (ops/compact.py)
+  6. compaction       word-sum placement                     (ops/compact.py)
 
 Every stage is differentially tested against the scan anchor
 (models/scan_codec.py) and the C++ oracle. Output is byte-identical to the
@@ -73,10 +73,9 @@ class EncodedChunks(NamedTuple):
 
 class EncodedWords(NamedTuple):
     """Per-pixel chunk staging in packed word form (form='words'): the
-    exact (lo, hi) layout kernels/pack._record_words derives from the
+    exact (lo, hi) layout ops/compact._record_words derives from the
     byte planes, emitted directly by the classifier — no (6, N) staging
-    materialization, no repack (hardware r3: classify+staging was ~15.3
-    ms/frame of the 31.4 ms stages cost in byte form)."""
+    materialization, no repack."""
 
     lo: jnp.ndarray    # (N,) uint32 stream bytes 0..3, little-endian
     hi: jnp.ndarray    # (N,) uint32 stream bytes 4..5 in the low 16 bits
@@ -92,7 +91,6 @@ def encode_stage_chunks(
     run_in=None,
     table_in=None,
     contains_last=None,
-    table_local=None,
     table_block: int = table._BLOCK,
     form: str = "bytes",
 ) -> EncodedChunks:
@@ -127,8 +125,7 @@ def encode_stage_chunks(
     # Pixels compare as ONE packed u32 each (pack_rgba is needed for the
     # table anyway); the per-byte diffs for classification come from a
     # SWAR subtract on the packed lanes — no (N, 3) int8 family, no
-    # narrow-int op chains (round-3; classification was ~10 ms/frame of
-    # 8/16-bit wheres on v5e).
+    # narrow-int op chains.
     if prev_in is None:
         prev_in = _SEED
     packed = table.pack_rgba(px4)
@@ -141,15 +138,9 @@ def encode_stage_chunks(
     runs = runs._replace(emits_run=runs.emits_run & valid)
 
     # -- stage 3: color-table replay (only literal pixels write: qoi.h:415-436)
-    # `table_local` (precomputed table_hit_local output) lets host-level
-    # paths run the big-tensor phase as its own program (PERF_NOTES.md)
     keys = table.hash64(px4)
-    if table_local is None:
-        hit0, (tbl_out, wr_out) = table.table_hit(
-            keys, packed, write=~eq, incoming=table_in, block=table_block)
-    else:
-        hit0, (tbl_out, wr_out) = table.table_hit_carry(
-            table_local, keys, packed, incoming=table_in, block=table_block)
+    hit0, (tbl_out, wr_out) = table.table_hit(
+        keys, packed, write=~eq, incoming=table_in, block=table_block)
     hit = ~eq & hit0
 
     # -- stage 4: op classification, SWAR on the packed u32 lanes (every
@@ -191,7 +182,7 @@ def encode_stage_chunks(
     if form == "words":
         # per-class whole-record words (bytes at/past len already zero);
         # the flush prefix and the run byte apply as word-level shifts —
-        # exactly kernels/pack._record_words' (lo, hi) layout without
+        # exactly ops/compact._record_words' (lo, hi) layout without
         # ever materializing the (6, N) byte planes
         u32 = lambda v: v.astype(jnp.uint32)
         rgbx = (packed << 8) & jnp.uint32(0xFFFFFF00)  # r<<8|g<<16|b<<24
@@ -247,115 +238,26 @@ def encode_stage_chunks(
     return EncodedChunks(staging, lens, carry)
 
 
-@jax.jit
-def _encode_device(px4: jnp.ndarray, n_valid: jnp.ndarray):
-    """Fused one-program encode (the bench.py program shape)."""
-    with profiling.annotate("qoi.encode.stage_chunks"):
-        chunks = encode_stage_chunks(px4, n_valid)
-    capacity = px4.shape[0] * 6
-    with profiling.annotate("qoi.encode.compact"):
-        return compact.compact_bytes6(chunks.staging, chunks.lens, capacity)
-
-
-# -- two-program flow for host-level paths: phase A runs the table stage's
-# big tensor families alone; phase B everything else. One program holding
-# both makes the remote XLA compiler's planning explode (PERF_NOTES.md).
-
-def _prep_eq(px4, n_valid):
-    io = jnp.arange(px4.shape[0], dtype=jnp.int32)
-    prev = jnp.concatenate([_SEED[None], px4[:-1]], axis=0)
-    return jnp.all(px4 == prev, axis=-1) | (io >= n_valid)
-
-
-@functools.partial(jax.jit, static_argnames=("table_block",))
-def _encode_phase_a(px4: jnp.ndarray, n_valid: jnp.ndarray,
-                    table_block: int = table._BLOCK):
-    with profiling.annotate("qoi.encode.table_local"):
-        eq = _prep_eq(px4, n_valid)
-        return table.table_hit_local(
-            table.hash64(px4), table.pack_rgba(px4), write=~eq,
-            block=table_block)
-
-
-@functools.partial(jax.jit, static_argnames=("table_block",))
-def _encode_phase_b(px4: jnp.ndarray, n_valid: jnp.ndarray, local,
-                    table_block: int = table._BLOCK):
-    with profiling.annotate("qoi.encode.stage_chunks"):
-        chunks = encode_stage_chunks(px4, n_valid, table_local=local,
-                                     table_block=table_block)
-    capacity = px4.shape[0] * 6
-    with profiling.annotate("qoi.encode.compact"):
-        return compact.compact_bytes6(chunks.staging, chunks.lens, capacity)
-
-
-def encode_device_split(px4, n_valid, table_block: int = table._BLOCK):
-    """Device-resident encode as two chained programs (buf, total)."""
-    return _encode_phase_b(px4, n_valid,
-                           _encode_phase_a(px4, n_valid, table_block),
-                           table_block)
-
-
-# -- splitd: the measured-fastest single-chip structure (PERF_NOTES.md
-# "program-structure endgame"): program A = stages + record densify,
-# program B = plane prep + Pallas placement kernel. Dispatching several
-# frames' A/B pairs back-to-back overlaps the ~25-40 ms per-program
-# floors in the async queue (bench.py does exactly that).
-
-@jax.jit
-def _encode_pack_a(px4: jnp.ndarray, n_valid: jnp.ndarray):
-    from ..kernels import pack as kpack
-
-    with profiling.annotate("qoi.encode.stage_chunks"):
-        chunks = encode_stage_chunks(px4, n_valid)
-    with profiling.annotate("qoi.encode.densify"):
-        return kpack.densify_records(chunks.staging, chunks.lens)
-
-
-def encode_device_pack(px4, n_valid, *, window: str = "dyn",
-                       interpret: bool = False):
-    """Device-resident encode as the splitd two-program pack structure
-    (buf, total) — the production bench path on real TPU. `interpret`
-    runs the placement kernel in Pallas interpret mode (CPU tests)."""
-    from ..kernels import pack as kpack
-
-    off_d, lo_d, hi_d, total = _encode_pack_a(px4, n_valid)
-    return kpack.place_records(off_d, lo_d, hi_d, total,
-                               px4.shape[0] * 6, window=window,
-                               interpret=interpret)
-
-
-@functools.partial(jax.jit, static_argnames=("seg", "table_block", "slide"))
+@functools.partial(jax.jit, static_argnames=("seg", "table_block"))
 def encode_device_wordsum(px4: jnp.ndarray, n_valid: jnp.ndarray,
                           seg: int = 20480,
-                          table_block: int = table._BLOCK,
-                          slide: str = None):
+                          table_block: int = table._BLOCK):
     """Device-resident encode as ONE fused program: word-form staging
     (form='words' — the classifier emits packed record words directly,
     no (6, N) byte-plane materialization) + the word-sum compaction
-    (ops/compact — sort-free, gather-free, kernel-free placement). The
-    fastest measured single-chip structure (hardware r3): one program
-    per frame, frames dispatched back-to-back and synced with ONE
-    combined fetch (the ~24-45 ms 'per-program floor' is almost
-    entirely D2H fetch round-trip — PERF_NOTES.md). seg=20480 is the
-    r4 sweep winner (305 -> 363 Mpx/s over 4096: the VMEM slide makes
-    long rows nearly free while nseg falls 2025 -> 405, shrinking the
-    assemble scatter's row count 5x; ~20480 is also the slide kernel's
-    VMEM ceiling). Ragged n pads with l=0 records (ops/compact).
+    (ops/compact — sort-free, gather-free placement). `seg` is the
+    compaction's segment width in pixels: longer segments mean more
+    slide passes over each row, shorter ones more rows for the
+    assemble's scatter. Ragged n pads with l=0 records (ops/compact).
     Returns (words (6*N//4,) uint32 — the stream bytes little-endian,
     numpy .view(uint8) on the host is free — and total int32)."""
-    if slide is None:
-        # the VMEM slide kernel (kernels/slide.py) is +20% on real TPU
-        # (hardware r3: wswk 192.0 vs wsw 159.8 Mpx/s, byte-verified);
-        # XLA slide on CPU (no Mosaic there)
-        slide = ("kernel" if jax.devices()[0].platform == "tpu"
-                 else "xla")
     with profiling.annotate("qoi.encode.stage_words"):
         ch = encode_stage_chunks(px4, n_valid, form="words",
                                  table_block=table_block)
     with profiling.annotate("qoi.encode.compact"):
         return compact.compact_words6_wordsum(
             ch.lo, ch.hi, ch.lens, px4.shape[0] * 6, seg=seg,
-            words_out=True, slide=slide)
+            words_out=True)
 
 
 def bucket_size(n: int, floor: int = 256) -> int:
@@ -385,8 +287,7 @@ def encode(pixels: np.ndarray, desc: fmt.StreamDesc, config=None) -> bytes:
     shape-bucketing floor and the table-replay block width.
 
     Uses the flagship fused word-sum program (what bench.py times) and
-    fetches only the stream's words in fixed-shape pieces — the old path
-    pulled the full 6n-byte capacity through the ~3 MB/s host link."""
+    fetches only the stream's words, not the full 6n-byte capacity."""
     from ..utils import fetch
 
     desc.validate()

@@ -20,13 +20,14 @@ import numpy as np
 
 from .. import format as fmt
 
-_HASH_MULT = jnp.array(fmt.HASH_MULTIPLIERS, dtype=jnp.int32)
 _SEED = jnp.array(fmt.SEED_PIXEL, dtype=jnp.uint8)
 
 
 def _hash64(px: jnp.ndarray) -> jnp.ndarray:
-    """Color-table slot (reference qoi.h:92-94). px: (..., 4) uint8."""
-    return (px.astype(jnp.int32) @ _HASH_MULT) & 63
+    """Color-table slot (reference qoi.h:92-94). px: (..., 4) uint8.
+    Elementwise multiply-adds (fmt.hash_px), never a dot: see
+    ops/table.hash64."""
+    return fmt.hash_px(px.astype(jnp.int32)) & 63
 
 
 def classify_literal(px: jnp.ndarray, px_prev: jnp.ndarray):

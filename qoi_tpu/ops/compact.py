@@ -1,17 +1,17 @@
 """Variable-length byte-record compaction (SURVEY.md §7.2 stage 5).
 
 Each pixel yields 0..6 stream bytes; compaction packs them contiguously at
-exclusive-prefix-sum offsets. Three device implementations:
+exclusive-prefix-sum offsets. The production placement is the word-sum
+compaction (`compact_words6_wordsum`); the others are references and the
+segment sort that the sequence-parallel tiled encoder still uses:
 
   * `compact_bytes` — sort-based: each staged byte is keyed by its target
     stream offset (invalid bytes key past the end) and one stable
-    `sort_key_val` produces the packed stream. On TPU this is by far the
-    fastest path (~0.2 ms for 50M staged bytes on v5e; a byte-level XLA
-    scatter takes ~400 ms).
+    `sort_key_val` produces the packed stream.
   * `compact_bytes_scatter` — XLA scatter baseline, kept for differential
     testing.
   * `compact_bytes_merge` — scatter-free log-depth pairwise merge via
-    barrel shifts; kept as a dense-VPU alternative.
+    barrel shifts; kept as a differential reference.
 
 All return (buffer, total_len) with identical contents in [0, total).
 """
@@ -57,8 +57,8 @@ def compact_bytes6(
     seg: int = 0,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Two-tier sort compaction, channel-major layout. staging6: (K, N)
-    uint8 (byte-plane-major: TPU pads the minor dimension to 128 lanes, so
-    (N, K) layouts waste 21x HBM — PERF_NOTES.md); lens: (N,) int32.
+    uint8 (byte-plane-major: each plane is one contiguous row); lens: (N,)
+    int32.
 
     Tier 1: each 4096-pixel segment sorts its staged bytes locally by
     (within-segment offset << 8 | byte) — a pixel's bytes can never leave
@@ -107,16 +107,15 @@ def compact_bytes6_wordsum(
     staging6: jnp.ndarray, lens: jnp.ndarray, capacity: int,
     seg: int = 0, radix: int = 2, words_out: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Word-sum compaction: the gather/sort/kernel-free placement
-    primitive (round-3 design; replaces both the two-tier sort and the
-    Pallas place kernel on the encode hot path).
+    """Word-sum compaction: the gather/sort-free placement primitive
+    (replaces the two-tier sort on the encode hot path).
 
     Key identities (every output byte is owned by exactly one record):
 
       * A record at byte offset o with value bytes packed (lo, hi)
-        contributes c0/c1/c2 to output words w0 = o>>2, w0+1, w0+2 (the
-        same word decomposition as kernels/pack.py) — and each output
-        word's value is exactly the SUM of contributions targeting it.
+        contributes c0/c1/c2 to output words w0 = o>>2, w0+1, w0+2 — and
+        each output word's value is exactly the SUM of contributions
+        targeting it.
       * Let C[w] = the running sum of ALL contribution values to words
         <= w. Then out_word[w] = C[w] - C[w-1] (sums of disjoint-byte
         values never carry within a word; the cross-word cumsum wraps
@@ -132,14 +131,14 @@ def compact_bytes6_wordsum(
         patched in directly after assembly.
       * Event destinations are strictly increasing in slot order and
         cover every word exactly once, so sliding events to their word
-        positions is an injective nondecreasing stream compaction — the
-        log-distance shift-slide of `kernels/pack._densify_shift`
-        (tier 1) plus one windowed row scatter-add (tier 2). The
+        positions is an injective nondecreasing stream compaction — a
+        log-distance shift-slide within each segment (tier 1) plus one
+        windowed row scatter-add (tier 2). The
         2-slots-per-pixel list keeps every slide distance >= 0 even
         when words locally outnumber pixels (avg > 4 B/record).
 
     Everything is fused elementwise work + one N-length cumsum + the
-    two-plane slide over 2N slots: no sort, no gather, no Pallas.
+    two-plane slide over 2N slots: no sort, no gather.
     staging6: (6, N) uint8; lens: (N,) int32 in [0, 6]; capacity:
     static output byte size, multiple of 4. Returns (buffer (capacity,)
     uint8 valid in [0, total), total int32)."""
@@ -152,7 +151,7 @@ def compact_bytes6_wordsum(
 def compact_words6_wordsum(
     lo: jnp.ndarray, hi: jnp.ndarray, lens: jnp.ndarray, capacity: int,
     seg: int = 0, radix: int = 2, words_out: bool = False,
-    sub_rows: int = 0, slide: str = "xla", interpret: bool = False,
+    sub_rows: int = 0,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Word-sum compaction from packed record words (the form='words'
     staging of pipeline.encode_stage_chunks): lo (N,) uint32 = record
@@ -164,13 +163,11 @@ def compact_words6_wordsum(
     CLIP mode and its final-partial-word patch clamps into capacity; if
     capacity is ever below the true total, overflowing windows re-base
     onto the last in-capacity words and SILENTLY corrupt bytes inside
-    capacity (ADVICE r4) — there is no clean truncation. Every caller
+    capacity — there is no clean truncation. Every caller
     must bound capacity at the format's worst case (5 B/px + trailer
     for chunk-partitioned pixels, 6 B/px for raw per-pixel staging).
-    `sub_rows` switches to subrow-relative slide distances (CLOSED on
-    TPU: tall-skinny events/assemble ops — PERF_NOTES). `slide="kernel"`
-    runs the slide passes in VMEM (kernels/slide.py) instead of
-    log2(2*seg) HBM round-trips."""
+    `sub_rows` switches to subrow-relative slide distances (fewer slide
+    passes, more assemble rows)."""
     assert capacity % 4 == 0
     n = lens.shape[0]
     s_eff = seg or _COMPACT_SEG
@@ -180,10 +177,8 @@ def compact_words6_wordsum(
         # pad the record list to a segment multiple with l=0 records:
         # they contribute no bytes, no events and zero sums everywhere
         # (the events build needs no validity mask for them), so the
-        # result is byte-identical. The old fallback collapsed ragged n
-        # to ONE giant segment — log2(2n) full-width slide passes (the
-        # r3 "wsum8k" trap) — which made every seg choice silently
-        # pessimal for caps it did not divide.
+        # result is byte-identical. Collapsing ragged n to ONE giant
+        # segment instead would cost log2(2n) full-width slide passes.
         pad = s_eff - n % s_eff
         lo = jnp.concatenate([lo, jnp.zeros((pad,), lo.dtype)])
         hi = jnp.concatenate([hi, jnp.zeros((pad,), hi.dtype)])
@@ -191,24 +186,36 @@ def compact_words6_wordsum(
     if sub_rows and (2 * s_eff) % sub_rows:
         sub_rows = 0  # tiny/ragged inputs: plain segment-wide distances
     ev = _wordsum_events_words(lo, hi, lens, s_eff, sub_rows=sub_rows)
-    if slide == "kernel" and not sub_rows:
-        from ..kernels.slide import slide_val
-
-        val, aux = slide_val(ev[0], ev[1], interpret=interpret), ev[1]
-    else:
-        val, aux = _wordsum_slide(ev[0], ev[1], radix=radix,
-                                  dist_cap=sub_rows)
+    val, aux = _wordsum_slide(ev[0], ev[1], radix=radix, dist_cap=sub_rows)
     if sub_rows:
         val = val.reshape(val.size // sub_rows, sub_rows)
     return _wordsum_assemble(val, aux, *ev[2:],
                              capacity=capacity, words_out=words_out)
 
 
+def _record_words(staging6, lens):
+    """Pack each pixel's staged bytes into (lo, hi|len<<16) int32 words
+    with bytes at or past len masked to zero (the staging contract covers
+    only bytes < len)."""
+    k, n = staging6.shape
+    assert k == 6
+    st = staging6.astype(jnp.uint32)
+    lo = st[0] | st[1] << 8 | st[2] << 16 | st[3] << 24
+    hi = st[4] | st[5] << 8
+    l = lens.astype(jnp.int32)
+    ls = (jnp.minimum(l, 3) << 3).astype(jnp.uint32)
+    m0 = jnp.where(l >= 4, jnp.uint32(0xFFFFFFFF),
+                   (jnp.uint32(1) << ls) - 1)
+    m1 = jnp.where(l >= 6, jnp.uint32(0xFFFF),
+                   jnp.where(l == 5, jnp.uint32(0xFF), jnp.uint32(0)))
+    lo = (lo & m0).view(jnp.int32)
+    hl = ((hi & m1) | l.astype(jnp.uint32) << 16).view(jnp.int32)
+    return lo, hl
+
+
 def _wordsum_events(staging6, lens, seg=0):
     """Phase 1 of the word-sum compaction from (6, N) byte planes: pack
     to record words, then build the event list."""
-    from ..kernels.pack import _record_words
-
     lo, hl = _record_words(staging6, lens)
     return _wordsum_events_words(
         lo.view(jnp.uint32), (hl & 0xFFFF).view(jnp.uint32), lens, seg)
@@ -285,8 +292,7 @@ def _wordsum_events_words(lo_u, hi_u, lens, seg=0, sub_rows=0):
         # before it can't outnumber slots before it), so every partial
         # move stays inside the subrow and d < sub_rows by construction
         # — the slide needs only log2(sub_rows) passes (still run in the
-        # WIDE (nseg, sw) shape; tall-skinny pass shapes are
-        # catastrophic, PERF_NOTES narrow-seg sweep). cnt/base are at
+        # wide (nseg, sw) shape). cnt/base are at
         # subrow granularity; the assemble scatter takes (nsub,
         # sub_rows) rows unchanged.
         r = sub_rows
@@ -305,9 +311,9 @@ def _wordsum_events_words(lo_u, hi_u, lens, seg=0, sub_rows=0):
 
 def _wordsum_slide(val, aux, radix: int = 2, dist_cap: int = 0):
     """Phase 2: slide events to their within-segment word positions by
-    the digits of their distance, LSB-first — injective for the same
-    reason as kernels/pack._densify_shift (destinations strictly
-    increasing); alive flag in aux bit 0, distance in bits 1..
+    the digits of their distance, LSB-first — injective because
+    destinations are strictly increasing; alive flag in aux bit 0,
+    distance in bits 1..
     radix=4 halves the pass count (two distance bits per pass, three
     shifted candidate reads + a 4-way select)."""
     nseg, sw = val.shape
@@ -345,9 +351,8 @@ def _wordsum_slide(val, aux, radix: int = 2, dist_cap: int = 0):
         val = jnp.where(mv_in, val_s, val)
         aux = jnp.where(mv_in, aux_s, jnp.where(mv_out, 0, aux))
         bit <<= 1
-    # alive-mask (kernels/slide.py does the same): dead slots carry
-    # stale values; masking here lets the assemble skip its full-plane
-    # `iota < cnt` pass
+    # alive-mask: dead slots carry stale values; masking here lets the
+    # assemble skip its full-plane `iota < cnt` pass
     return jnp.where((aux & 1) != 0, val, 0), aux
 
 
@@ -360,8 +365,8 @@ def _wordsum_assemble(val, aux, cnt, wbase, total, v_all, capacity,
     little-endian word form (numpy .view(uint8) on the host is free)."""
     nseg, sw = val.shape
     n = nseg * sw // 2
-    # dead slots are already zero: the slide (kernel and XLA forms)
-    # alive-masks its output, so no `iota < cnt` pass is needed here
+    # dead slots are already zero: the slide alive-masks its output, so
+    # no `iota < cnt` pass is needed here
     w_cap = capacity // 4
     if nseg == 1:
         cends = val[0]
@@ -423,8 +428,7 @@ def compact_bytes_hybrid(
     The add is order-safe: after merging, record r's valid bytes occupy
     [off_r, off_r + len_r) and its padded tail is zero, so overlapping
     windows only ever add zeros onto real bytes. The scatter writes whole
-    rows (update_window_dims), not elements — the shape XLA lowers
-    efficiently on TPU, unlike byte-granular scatters.
+    rows (update_window_dims), not elements.
     """
     n, k = staging.shape
     col = jnp.arange(k, dtype=jnp.int32)[None, :]
@@ -494,10 +498,10 @@ def compact_bytes_merge(
     Any N; odd row counts carry their last row down unpaired. Returns
     (flat (final_width,) uint8 with the stream in [0, total), total int32).
 
-    Every level is dense VPU work: pairs of records concatenate via a
+    Every level is dense elementwise work: pairs of records concatenate via a
     barrel shift (static rolls selected by the left length's bits), so no
-    gathers or scatters ever touch HBM — the TPU-native alternative to the
-    sort/scatter paths, ~constant bytes per level x log2(N) levels.
+    gathers or scatters ever touch memory — ~constant bytes per level x
+    log2(N) levels.
     """
     n, k = staging.shape
     # zero the invalid tail of every record so OR-merging is clean

@@ -42,7 +42,7 @@ def _pack_map(f0):
     """Pack the 5-state map [f0, 0, 1, 2, 3] into base-8 digits of one
     int32: digit s holds f(s). Only state 0's transition depends on the
     byte (s>0 always decrements), so one (M,) int32 array carries every
-    map — a (M, 5) layout would lane-pad 25x on TPU (PERF_NOTES.md)."""
+    map in one contiguous word instead of a (M, 5) layout."""
     const = 0
     for s in range(1, _NSTATES):
         const |= (s - 1) << (3 * s)

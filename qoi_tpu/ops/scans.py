@@ -16,10 +16,9 @@ from .. import format as fmt
 
 
 #: route the big 1-D cumulative ops through blocked_scan (ONE pass over
-#: HBM) instead of jnp.cumsum / lax.cummax (XLA lowers those to ~log2(n)
-#: shifted full-array passes on TPU). The round-1 "cummax ~0" op-table
-#: entry predates the fetch-RTT discovery — those standalone timings
-#: were floor-masked. Flag kept for abperf A/B.
+#: device memory) instead of jnp.cumsum / lax.cummax. Whether XLA's own
+#: cumulative ops beat it on a given device is not yet measured; the flag
+#: is the switch for that comparison.
 _BLOCKED_CUM = True
 
 
@@ -43,10 +42,10 @@ def chunked_assoc_scan(combine, elems, seg: int = 1 << 16):
     within-segment scans under `lax.map` + one small cross-segment scan +
     an elementwise prefix application.
 
-    A flat `lax.associative_scan` over tens of millions of elements stalls
-    this platform's remote XLA compiler for >30 min (PERF_NOTES.md); the
-    chunked form keeps every compiled graph segment-sized. Semantically
-    identical for associative `combine`.
+    A flat `lax.associative_scan` over tens of millions of elements makes
+    a very large compiled graph; the chunked form keeps every compiled
+    graph segment-sized. Semantically identical for associative
+    `combine`.
     """
     leaves = jax.tree.leaves(elems)
     n = leaves[0].shape[-1]
@@ -84,18 +83,13 @@ def chunked_assoc_scan(combine, elems, seg: int = 1 << 16):
     return back
 
 
-#: lax.scan unroll factor for the blocked scans. Hardware r4: unroll
-#: HURTS on this TPU (b16 decode 38.9 / 42.7 / 48.7 ms/frame at
-#: 1 / 4 / 8) — the bigger loop bodies lose more to scheduling/VMEM
-#: pressure than the per-step bookkeeping costs. 1 stays; the knob is
-#: kept for abperf sweeps.
+#: lax.scan unroll factor for the blocked scans: bigger loop bodies lose
+#: more to scheduling than the per-step bookkeeping costs.
 _UNROLL = 1
 
 #: default elements-per-lane of blocked_scan == its lax.scan step count;
-#: the sequential steps are latency-bound (~1 us each regardless of lane
-#: width), so smaller blocks trade step count for wider per-step rows.
-#: Hardware r4 in-context sweep (b16 photo decode ms/frame at
-#: 128/256/512/1024): see PERF_NOTES "blocked_scan block sweep".
+#: the sequential steps are latency-bound regardless of lane width, so
+#: smaller blocks trade step count for wider per-step rows.
 _BLOCK = 512
 
 
@@ -103,10 +97,9 @@ def blocked_scan(combine, elems, block: int = 0, unroll: int = 0):
     """Inclusive associative scan over axis -1, as a vmapped `lax.scan`:
 
       1. lax.scan over position-in-block (lanes = blocks): the running
-         combine stays in registers/VMEM, so the data makes ONE pass
-         through HBM (a log-depth `associative_scan` re-reads the
-         operands ~2*log2(n) times — measured ~60 ms per 16M-element
-         scan on v5e vs single-digit ms for this form);
+         combine stays in registers, so the data makes ONE pass through
+         device memory (a log-depth `associative_scan` re-reads the
+         operands ~2*log2(n) times);
       2. cross-block totals: one small associative_scan over n/block;
       3. elementwise prefix fixup.
 

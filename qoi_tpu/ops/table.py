@@ -8,8 +8,8 @@ the *most recent preceding non-run pixel hashing to s* (or the zero entry) —
 independent of which ops the encoder chose.
 
 That reduces table replay to "last same-slot writer before me", computed in
-three dense log-depth stages sized for the VPU (measured at ~1.5 ms for 8.3M
-positions on v5e, vs ~200 ms for a scan-based formulation):
+three dense log-depth stages, with no gathers or scatters on the encode
+side:
 
   1. within-block: brute-force masked max over (nb, B, B) int8 relative
      positions — all-to-all inside a 64-position block is cheaper than any
@@ -41,14 +41,18 @@ def pack_rgba(px4: jnp.ndarray) -> jnp.ndarray:
 
 
 def hash64(px4: jnp.ndarray) -> jnp.ndarray:
-    """Table slot (reference qoi.h:92-94). px4: (..., 4) uint8 -> int32."""
-    mult = jnp.array(fmt.HASH_MULTIPLIERS, dtype=jnp.int32)
-    return (px4.astype(jnp.int32) @ mult) & (_SLOTS - 1)
+    """Table slot (reference qoi.h:92-94). px4: (..., 4) uint8 -> int32.
+
+    Four integer multiplies and three adds, never a dot: the sum reaches
+    255 * 26 = 6630 (13 bits), beyond what a TF32 tensor-core product
+    keeps exactly, and elementwise integer ops are untouched by any
+    matmul precision setting."""
+    return fmt.hash_px(px4.astype(jnp.int32)) & (_SLOTS - 1)
 
 
-#: blocks per lax.map segment in the big-tensor phases: bounds live HBM to
-#: ~seg_blocks*block^2 bytes per mask family (the all-at-once form OOMs at
-#: ~2 GB/family and stalls the remote compiler — PERF_NOTES.md)
+#: blocks per lax.map segment in the big-tensor phases: bounds live device
+#: memory to ~seg_blocks*block^2 bytes per mask family (the all-at-once
+#: form needs ~2 GB per family at 4K)
 _SEG_BLOCKS = 2048
 
 
@@ -77,7 +81,7 @@ def table_hit_local(
     """Phase A of `table_hit`: the big tensor families (in-block
     brute-force masks + per-slot value-plane summaries), processed as a
     `lax.map` over segments of blocks — bounded live memory and a small
-    compile graph (PERF_NOTES.md).
+    compile graph.
 
     Returns (hit_in, has_local (N,) bool; s_written (nb, 64) bool,
     s_val (nb, 64) int32 bit-pattern of the last written value).
@@ -190,10 +194,8 @@ def table_hit_carry(
 
     # -- cross-block overwrite scan (incoming state as a virtual block 0).
     # A flat associative_scan here is ~2*log2(nb) full passes over the
-    # (nb, 64) planes — measured the single most expensive slice of the
-    # whole table stage (hardware r4 ladder: carry+select was +7.5
-    # ms/frame vs +4.5 for the brute in-block families). blocked_scan
-    # makes it ONE sequential pass (lanes = block-columns).
+    # (nb, 64) planes; blocked_scan makes it ONE sequential pass (lanes =
+    # block-columns).
     if incoming is None:
         inc_t = jnp.zeros((_SLOTS,), jnp.uint32)
         inc_w = jnp.zeros((_SLOTS,), bool)
@@ -240,14 +242,11 @@ def table_hit(
     incoming: Tuple[jnp.ndarray, jnp.ndarray] | None = None,
 ) -> Tuple[jnp.ndarray, Tuple[jnp.ndarray, jnp.ndarray]]:
     """Encoder-specialized table replay: INDEX-hit detection with ZERO
-    gathers/scatters (TPU gathers cost ~10 ms per million elements on v5e
-    via XLA; this formulation measures as pure per-program overhead).
+    gathers/scatters.
 
     hit[i] == (table value at keys[i] just before i) == vals[i], under the
     same last-writer-wins semantics as `table_replay`. See
-    table_hit_local/table_hit_carry for the machinery; host-level encode
-    paths run the two phases as separate programs to keep remote-compiler
-    planning tractable (PERF_NOTES.md).
+    table_hit_local/table_hit_carry for the machinery.
 
     Returns (hit (N,) bool, (final_table (64,) uint32, final_written)).
     """

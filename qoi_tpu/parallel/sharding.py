@@ -27,8 +27,10 @@ def make_mesh(
 ) -> Mesh:
     """Build a (data, seq) mesh over the first data*seq devices.
 
-    The seq axis is placed innermost so cross-tile carry collectives ride
-    the fastest links (ICI within a slice); data-parallel traffic is only
+    Device order follows the algorithm only: the GPUs of one host are
+    joined all to all by NVLink and NCCL carries the collectives, so no
+    placement is faster than another. The seq axis is innermost so each
+    stream's tiles are consecutive devices; data-parallel traffic is only
     final counter psums (SURVEY §5.8).
     """
     if devices is None:

@@ -68,8 +68,7 @@ def _tile_step(data: jnp.ndarray, chunks_len: jnp.ndarray, axis: str):
     io = jnp.arange(mb, dtype=jnp.int32)
 
     # ---- stage 1: tokenize via packed FSM map composition ----------------
-    # base-8-packed 5-state maps (ops/fsm.py): one int32 per byte — the
-    # (Mb, 5) layout lane-pads 25x on TPU (PERF_NOTES.md)
+    # base-8-packed 5-state maps (ops/fsm.py): one int32 per byte
     lens_b = fsm.chunk_byte_len(data)
     trans = fsm._pack_map(lens_b - 1)
     incl = scans.blocked_scan(fsm._compose_maps, trans)  # (Mb,)

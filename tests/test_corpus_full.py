@@ -2,14 +2,13 @@
 
 Builds the complete ~300-image synthetic conformance corpus
 (tools/make_corpus.py — the stand-in for the reference's ~2,800-image
-qoi_benchmark_suite, reference README.md:19) and runs the TPU-engine
+qoi_benchmark_suite, reference README.md:19) and runs the device-engine
 roundtrip over every image with BOTH gates:
 
   * decode(encode(img)) pixel-identical to the source, and
   * every encoded stream byte-identical to the C++ oracle.
 
-This is the r5 VERDICT item-5 bar: verify_failures == 0 at >= 300
-images, including hash-collision palettes, worst-case ~5 B/px noise,
+The bar: verify_failures == 0 at >= 300 images, including hash-collision palettes, worst-case ~5 B/px noise,
 1xN / Nx1 extremes and >= 16 Mpx members.
 """
 import pathlib

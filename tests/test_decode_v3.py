@@ -137,11 +137,11 @@ def test_v3_decode_fine_bucket_stream():
 
 @pytest.mark.parametrize("case", ["photo", "mixed", "palette_alpha",
                                   "runs"])
-def test_dense_expand_matches(case):
-    """The chunk-compacted dense expansion (decode_v3._compact_chunks +
-    kernels/expand dense geometry, interpret mode) must be pixel-
-    identical to the byte-granular kernel AND the XLA reference."""
-    from qoi_tpu.kernels import expand as kexpand
+def test_decode_core_expand_matches_oracle(case):
+    """The decoder's per-byte (pix_off, px) records through run expansion
+    (ops/expand) must be the oracle's pixels for every content class,
+    including the truncation-tolerant tail past the last chunk."""
+    from qoi_tpu.ops import expand
 
     w, h = 256, 128
     img = {"photo": lambda: testimages.photo(w, h, 4),
@@ -157,14 +157,12 @@ def test_dense_expand_matches(case):
     px, starts, npix, pix_off, conv, _, _ = decode_v3._decode_core(
         jnp.asarray(pad), jnp.int32(len(stream) - 22))
     assert bool(conv)
-    ref = kexpand.expand_px_xla(pix_off, px, npc)
-    got_byte = decode_v3._expand_packed(
-        starts, px, pix_off, npc, use_kernel=True, interpret=True)
-    got_dense = decode_v3._expand_packed(
-        starts, px, pix_off, npc, use_kernel=True, dense=True,
-        interpret=True)
-    np.testing.assert_array_equal(np.asarray(got_byte), np.asarray(ref))
-    np.testing.assert_array_equal(np.asarray(got_dense), np.asarray(ref))
+    got = decode_v3.unpack_px32(np.asarray(
+        expand.expand_px(pix_off, px, npc)))
+    want, _ = oracle.decode(stream)
+    np.testing.assert_array_equal(got[: w * h].reshape(h, w, 4), want)
+    # past the image the plane repeats the last pixel (qoi.h:544)
+    assert (got[w * h:] == got[w * h - 1]).all()
 
 
 def test_v3_truncation_and_channel_forcing():

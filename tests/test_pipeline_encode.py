@@ -1,5 +1,8 @@
 """Parallel encode pipeline vs oracle: must be byte-identical
 (SURVEY.md §7.4 step 4 differential strategy)."""
+import functools
+import zlib
+
 import numpy as np
 import pytest
 
@@ -9,6 +12,7 @@ from qoi_tpu.models import pipeline
 from qoi_tpu.ops import compact, scans
 from qoi_tpu.utils import testimages
 
+import jax
 import jax.numpy as jnp
 
 pytestmark = pytest.mark.skipif(not oracle.available(), reason="no C++ toolchain")
@@ -115,9 +119,8 @@ def test_compact_bytes6_wordsum(n, lens_kind):
     assert np.array_equal(
         np.asarray(w).view(np.uint8)[: int(ta)], np.asarray(b)[: int(tb)])
     # subrow-relative slide (log2(sub_rows) passes + subrow scatter)
-    from qoi_tpu.kernels.pack import _record_words
-
-    lo, hl = _record_words(jnp.asarray(staging.T.copy()), jnp.asarray(lens))
+    lo, hl = compact._record_words(
+        jnp.asarray(staging.T.copy()), jnp.asarray(lens))
     for r in (128, 512):
         sr, tr = compact.compact_words6_wordsum(
             lo.view(jnp.uint32), (hl & 0xFFFF).view(jnp.uint32),
@@ -125,23 +128,14 @@ def test_compact_bytes6_wordsum(n, lens_kind):
         assert int(tr) == int(ta)
         assert np.array_equal(np.asarray(sr)[: int(ta)],
                               np.asarray(b)[: int(tb)])
-    # the VMEM slide kernel (kernels/slide.py, interpret mode on CPU)
-    sk, tk = compact.compact_words6_wordsum(
-        lo.view(jnp.uint32), (hl & 0xFFFF).view(jnp.uint32),
-        jnp.asarray(lens), cap, slide="kernel", interpret=True)
-    assert int(tk) == int(ta)
-    assert np.array_equal(np.asarray(sk)[: int(ta)],
-                          np.asarray(b)[: int(tb)])
 
 
 @pytest.mark.parametrize("case", ["mixed", "palette_alpha", "flat", "noise"])
 def test_stage_words_matches_bytes(case):
     """form='words' staging must emit exactly the (lo, hi) record words
-    kernels/pack._record_words derives from the byte-plane staging, for
+    ops/compact._record_words derives from the byte-plane staging, for
     every chunk class (runs/flush, INDEX, DIFF, LUMA, RGB, RGBA), plus
     an identical carry."""
-    from qoi_tpu.kernels import pack as kpack
-
     w, h = 120, 50
     img = {"mixed": lambda: testimages.mixed(w, h, 4),
            "palette_alpha": lambda: testimages.palette_alpha(w, h),
@@ -149,7 +143,7 @@ def test_stage_words_matches_bytes(case):
            "noise": lambda: testimages.noise(w, h, 4)}[case]()
     px4 = jnp.asarray(pipeline.force_rgba(img, fmt.StreamDesc(w, h, 4)))
     cb = pipeline.encode_stage_chunks(px4, jnp.int32(w * h))
-    lo_b, hl_b = kpack._record_words(cb.staging, cb.lens)
+    lo_b, hl_b = compact._record_words(cb.staging, cb.lens)
     cw = pipeline.encode_stage_chunks(px4, jnp.int32(w * h), form="words")
     assert np.array_equal(np.asarray(cw.lens), np.asarray(cb.lens))
     assert np.array_equal(np.asarray(cw.lo),
@@ -184,3 +178,186 @@ def test_compact_bytes6_both_tiers(n):
     b, tb = compact.compact_bytes(jnp.asarray(staging), jnp.asarray(lens), cap)
     assert int(ta) == int(tb) == lens.sum()
     assert np.array_equal(np.asarray(a)[: int(ta)], np.asarray(b)[: int(tb)])
+
+
+# ---------------------------------------------------------------------------
+# Stages 1-4 (encode_stage_chunks) on their own: the per-pixel records,
+# concatenated in numpy, must be the oracle's stream body — in byte-plane
+# form and in packed-word form, through padding and multi-block tables.
+# ---------------------------------------------------------------------------
+
+def _records_from_planes(staging6, lens):
+    return b"".join(staging6[: lens[i], i].tobytes()
+                    for i in range(lens.shape[0]))
+
+
+def _records_from_words(lo, hi, lens):
+    words = np.stack([lo, hi], axis=1).astype("<u4").view(np.uint8)
+    words = words.reshape(-1, 8)
+    return b"".join(words[i, : lens[i]].tobytes()
+                    for i in range(lens.shape[0]))
+
+
+_stage_jit = jax.jit(pipeline.encode_stage_chunks, static_argnames=("form",))
+
+
+def _stage_check(img):
+    from qoi_tpu.models import scan_codec
+
+    h, w, ch = img.shape
+    desc = fmt.StreamDesc(w, h, ch)
+    px4 = pipeline.force_rgba(img, desc)
+    n = px4.shape[0]
+    padded = np.zeros((pipeline.bucket_size(n), 4), np.uint8)
+    padded[:n] = px4
+    want = oracle.encode(img, desc)[fmt.HEADER_SIZE:-fmt.TRAILER_SIZE]
+    assert scan_codec.encode(img, desc)[
+        fmt.HEADER_SIZE:-fmt.TRAILER_SIZE] == want
+
+    cb = _stage_jit(jnp.asarray(padded), jnp.int32(n))
+    lens = np.asarray(cb.lens)
+    assert not lens[n:].any(), "padding pixels must emit nothing"
+    assert _records_from_planes(np.asarray(cb.staging), lens) == want
+    cw = _stage_jit(jnp.asarray(padded), jnp.int32(n), form="words")
+    assert np.array_equal(np.asarray(cw.lens), lens)
+    assert _records_from_words(np.asarray(cw.lo), np.asarray(cw.hi),
+                               lens) == want
+
+
+@pytest.mark.parametrize("name", ["gradient", "palette", "mixed", "flat_70px",
+                                  "noise_small", "runs_caps", "seed_run",
+                                  "wraparound", "alpha_toggle"])
+def test_stage_chunks_edge_cases(name):
+    _stage_check(testimages.edge_case_suite(4)[name])
+
+
+def test_stage_chunks_rgb():
+    _stage_check(testimages.mixed(64, 20, 3))
+
+
+def test_stage_chunks_multiblock_runs():
+    """Runs longer than the 62-cap crossing table blocks."""
+    _stage_check(testimages.flat(300, 4, 4))
+
+
+def test_stage_chunks_table_carry():
+    """Palette repeats crossing table blocks exercise the cross-block
+    last-writer carry."""
+    _stage_check(testimages.palette(300, 4, 4, colors=9, seed=5))
+
+
+def test_stage_chunks_padding_tail():
+    _stage_check(testimages.noise(97, 5, 4, seed=8))
+
+
+# ---------------------------------------------------------------------------
+# The word-sum compaction on record-length extremes, against a numpy
+# concatenation of the records.
+# ---------------------------------------------------------------------------
+
+def _random_staging(n, rng, p_zero=0.5):
+    lens = rng.choice([0, 1, 2, 3, 4, 5, 6], size=n,
+                      p=[p_zero] + [(1 - p_zero) / 6] * 6)
+    staging = rng.integers(0, 256, size=(6, n), dtype=np.uint8)
+    staging = np.where(np.arange(6)[:, None] < lens[None, :], staging, 0)
+    return staging.astype(np.uint8), lens.astype(np.int32)
+
+
+def _masked(staging, lens):
+    return np.where(np.arange(6)[:, None] < lens[None, :], staging,
+                    0).astype(np.uint8)
+
+
+def _lens_case(case):
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    if case.startswith("random"):
+        n = {"random_small": 1 << 10}.get(case, 1 << 14)
+        return _random_staging(n, rng)
+    if case == "segment_boundary":
+        n = 4096 * 4
+        staging, _ = _random_staging(n, rng, p_zero=0.0)
+        lens = np.zeros(n, np.int32)
+        lens[4095], lens[4096] = 5, 6      # straddle the first edge
+        lens[8191], lens[8192] = 1, 1      # and the second
+        lens[12288:] = 6                   # a fully-dense segment
+        return _masked(staging, lens), lens
+    if case == "long_zero_gaps":
+        n = 1 << 14
+        staging, lens = _random_staging(n, rng, p_zero=0.0)
+        keep = np.zeros(n, bool)
+        keep[::3000] = True
+        keep[n - 1] = True
+        lens = np.where(keep, lens, 0).astype(np.int32)
+        return _masked(staging, lens), lens
+    if case == "all_six":
+        return (rng.integers(0, 256, size=(6, 4096), dtype=np.uint8),
+                np.full(4096, 6, np.int32))
+    if case == "third_word_spill":
+        # offsets 3, 9, 15, ...: every record at 3 mod 4 spills a byte
+        # into a third word, the last one included
+        staging = rng.integers(0, 256, size=(6, 2048), dtype=np.uint8)
+        lens = np.full(2048, 6, np.int32)
+        lens[0] = 3
+        return _masked(staging, lens), lens
+    if case == "all_one":
+        staging, _ = _random_staging(4096, rng, p_zero=0.0)
+        lens = np.ones(4096, np.int32)
+        return _masked(staging, lens), lens
+    if case == "empty":
+        return np.zeros((6, 2048), np.uint8), np.zeros(2048, np.int32)
+    if case.startswith("word_phase"):
+        # a leading record of 1..4 bytes shifts every later offset
+        # through each word phase
+        lead = int(case[-1])
+        staging, lens = _random_staging(2048, rng, p_zero=0.3)
+        lens[0] = lead
+        staging[:, 0] = [7, 8, 9, 10, 11, 12]
+        return _masked(staging, lens), lens
+    raise KeyError(case)
+
+
+@functools.partial(jax.jit, static_argnames=("seg",))
+def _wordsum_from_planes(staging, lens, seg):
+    lo, hl = compact._record_words(staging, lens)
+    return compact.compact_words6_wordsum(
+        lo.view(jnp.uint32), (hl & 0xFFFF).view(jnp.uint32), lens,
+        lens.shape[0] * 6, seg=seg, words_out=True)
+
+
+@pytest.mark.parametrize("case,seg", [
+    ("random", 0), ("random", 1024), ("random_small", 0),
+    ("random_small", 256), ("random_wide", 20480), ("random_wide", 4096),
+    ("segment_boundary", 0), ("long_zero_gaps", 0), ("all_six", 0),
+    ("third_word_spill", 0), ("all_one", 0), ("empty", 0),
+    ("word_phase_1", 0), ("word_phase_2", 0), ("word_phase_3", 0),
+    ("word_phase_4", 0)])
+def test_wordsum_record_lengths(case, seg):
+    staging, lens = _lens_case(case)
+    if case == "random_wide":  # n = 2^15 is ragged for seg 20480: pads
+        staging, lens = _random_staging(1 << 15, np.random.default_rng(5))
+    words, total = _wordsum_from_planes(
+        jnp.asarray(staging), jnp.asarray(lens), seg)
+    want = _records_from_planes(staging, lens)
+    assert int(total) == len(want) == int(lens.sum())
+    assert np.asarray(words).view(np.uint8)[: int(total)].tobytes() == want
+
+
+@pytest.mark.parametrize("maker", ["mixed", "photo"])
+def test_wordsum_full_encode_differential(maker):
+    """Pipeline word staging -> word-sum compaction == the oracle."""
+    w, h = 160, 96
+    desc = fmt.StreamDesc(w, h, 4)
+    img = getattr(testimages, maker)(w, h, 4, seed=11)
+    px4 = pipeline.force_rgba(img, desc)
+    n = px4.shape[0]
+    cap = pipeline.bucket_size(n)
+    padded = np.zeros((cap, 4), np.uint8)
+    padded[:n] = px4
+    ch = _stage_jit(jnp.asarray(padded), jnp.int32(n), form="words")
+    words, total = jax.jit(
+        lambda lo, hi, lens: compact.compact_words6_wordsum(
+            lo, hi, lens, cap * 6, words_out=True))(ch.lo, ch.hi, ch.lens)
+    got = (fmt.pack_header(desc)
+           + np.asarray(words).view(np.uint8)[: int(total)].tobytes()
+           + fmt.TRAILER)
+    assert got == oracle.encode(img, desc)

@@ -3,7 +3,7 @@ ACTUAL reference implementation (/root/reference/qoi.h, compiled into a
 scratch shared library at test time — the reference tree itself stays
 read-only and no reference code enters the repo).
 
-This closes the verification chain: TPU engines are tested byte-exact
+This closes the verification chain: device engines are tested byte-exact
 against the C++ oracle everywhere else; here the oracle itself is
 re-validated against qoi_encode/qoi_decode from qoi.h:356/qoi.h:488 on
 the edge-case suite, random images, header rejection, and truncation.

@@ -82,3 +82,56 @@ def test_table_replay_query_keys(n):
     np.testing.assert_array_equal(np.asarray(before), want_before)
     np.testing.assert_array_equal(np.asarray(ft), want_t)
     np.testing.assert_array_equal(np.asarray(fw), want_w)
+
+
+# -- the QOI hash as elementwise multiply-adds (never a dot) ---------------
+
+def _np_hash(px):
+    p = px.astype(np.int64)
+    return (p[..., 0] * 3 + p[..., 1] * 5 + p[..., 2] * 7
+            + p[..., 3] * 11) % 64
+
+
+@pytest.mark.parametrize("which", ["table", "scan_codec"])
+def test_hash_exhaustive_extremes(which):
+    """Every hash implementation equals (3r+5g+7b+11a) mod 64 on all
+    pixels built from the extreme channel values, where the unmasked sum
+    reaches 255*26 = 6630 (13 bits, more than a TF32 product keeps)."""
+    from qoi_tpu.models import scan_codec
+
+    vals = np.array([0, 1, 2, 63, 64, 127, 128, 200, 254, 255], np.uint8)
+    px = np.stack(np.meshgrid(vals, vals, vals, vals, indexing="ij"),
+                  axis=-1).reshape(-1, 4)
+    fn = table.hash64 if which == "table" else scan_codec._hash64
+    got = np.asarray(fn(jnp.asarray(px)))
+    np.testing.assert_array_equal(got, _np_hash(px))
+    assert int(np.asarray(px.astype(np.int32) @ np.array([3, 5, 7, 11]))
+               .max()) == 6630
+
+
+def test_hash_traces_no_dot():
+    """The hash lowers to elementwise integer ops only: no dot_general
+    that a matmul precision setting could route through tensor cores."""
+    import jax
+
+    jaxpr = jax.make_jaxpr(table.hash64)(jnp.zeros((16, 4), jnp.uint8))
+    prims = {e.primitive.name for e in jaxpr.jaxpr.eqns}
+    assert "dot_general" not in prims
+    assert "mul" in prims
+
+
+def test_hash_matches_oracle_on_index_heavy_image():
+    """An image whose INDEX decisions depend on high-sum hashes (bright,
+    opaque and translucent palettes revisited out of order) encodes
+    byte-identically to the C++ oracle."""
+    from qoi_tpu import format as fmt, oracle
+    from qoi_tpu.models import pipeline
+
+    if not oracle.available():
+        pytest.skip("oracle not built")
+    rng = np.random.default_rng(3)
+    pal = rng.integers(200, 256, size=(48, 4), dtype=np.uint8)
+    pal[::3, 3] = 255
+    img = pal[rng.integers(0, 48, size=(24, 40))]
+    desc = fmt.StreamDesc(40, 24, 4)
+    assert pipeline.encode(img, desc) == oracle.encode(img, desc)

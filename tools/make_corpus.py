@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
-"""Generate the synthetic PNG conformance corpus (CORPUS_BENCH.md).
+"""Generate the synthetic PNG conformance corpus.
 
 The real qoi_benchmark_suite (~2,800 PNGs, linked from the reference
-README) is not fetchable in this environment (zero egress); this corpus
-mirrors its content classes — 3-channel-photo-heavy, like the real
-suite — with the repo's generators at a spread of sizes, seeds and
-channel counts, deterministically. Round-5 build (VERDICT r4 item 5):
+README) is not downloaded; this corpus mirrors its content classes —
+3-channel-photo-heavy, like the real suite — with the repo's generators
+at a spread of sizes, seeds and channel counts, deterministically:
 ~320 images incl. extreme aspect ratios (1xN / Nx1), >= 16 Mpx members,
 hash-collision-dense palettes and worst-case ~5 B/px noise.
 
